@@ -1,8 +1,10 @@
-"""Demo scene: the reference's main.py, TPU-native.
+"""Demo scene: the reference's main.py, on the JAX renderer.
 
-Builds the diablo3_pose + floor scene with tangent-space normal mapping,
-directional light, two cameras (main + debug) and an optional skybox, renders
-one frame, prints the render time, and saves/shows the result.
+Builds the reference demo's layout — a ~5k-face figure + floor with
+tangent-space normal mapping, directional light, two cameras (main + debug)
+and an optional skybox — from generated meshes and textures
+(tpu_renderer.scenes), renders one frame, prints the render time, and
+saves/shows the result.
 
     python examples/demo.py [--save out.png] [--show] [--resolution 1024]
                             [--skybox] [--shadows/--no-shadows]
@@ -19,28 +21,16 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import tpu_renderer as tr
-from tpu_renderer.models.gizmos import make_floor
+from tpu_renderer.models.gizmos import noise_diffuse_texture
+from tpu_renderer.scenes import flagship_figure, flagship_floor
+from tpu_renderer.utils.compile_cache import enable_compile_cache
 from tpu_renderer.utils.image import save_frame, show_frame
 from tpu_renderer.utils.profiling import FrameTimer
 
-ASSETS = "/root/reference/obj"
-
 
 def build_scene(args):
-    diablo = tr.Model.load_model(
-        os.path.join(ASSETS, "diablo3_pose/diablo3_pose.obj"))
-    diablo.textures.register(
-        "normals", os.path.join(ASSETS, "diablo3_pose/diablo3_pose_nm_tangent.tga"),
-        tangent=True)
-    diablo.textures.register(
-        "diffuse", os.path.join(ASSETS, "diablo3_pose/diablo3_pose_diffuse.tga"),
-        normalize=False)
-
-    # The reference's floor.obj is absent from its repo (main.py:48) — use the
-    # procedural stand-in, with its diffuse texture.
-    floor = make_floor(2.0, y=-1.0)
-    floor.textures.register("diffuse", os.path.join(ASSETS, "floor_diffuse.tga"),
-                            normalize=False)
+    figure = flagship_figure()
+    floor = flagship_floor()
 
     light = tr.Light((5, 5, 0), light_type=tr.Lightning.DIRECTIONAL_LIGHTNING,
                      center=(0, 0.5, 0.5), fovy=90, linear=1e-9,
@@ -55,23 +45,24 @@ def build_scene(args):
 
     skymap = None
     if args.skybox:
-        skymap = tr.CubeMap(**{side: os.path.join(ASSETS, "skybox", f"{side}.jpg")
-                               for side in ("back", "bottom", "front", "left",
-                                            "right", "top")})
+        skymap = tr.CubeMap(**{side: noise_diffuse_texture(10 + i, 256)
+                               for i, side in enumerate(
+                                   ("back", "bottom", "front", "left",
+                                    "right", "top"))})
 
     scene = tr.Scene(camera, light, shadows=args.shadows,
                      debug_camera=debug_camera if args.debug_camera else None,
                      resolution=(args.resolution, args.resolution),
                      system=tr.SYSTEM.LH, subsystem=tr.SUBSYSTEM.OPENGL,
                      skymap=skymap, shader=args.shader)
-    scene.add_model(diablo)
+    scene.add_model(figure)
     scene.add_model(floor)
     return scene
 
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--save", default="/tmp/tpu_renderer_demo.png")
+    p.add_argument("--save", default="demo.png")
     p.add_argument("--show", action="store_true")
     p.add_argument("--resolution", type=int, default=1024)
     p.add_argument("--skybox", action="store_true")
@@ -82,6 +73,7 @@ def main():
     p.set_defaults(shadows=True)
     args = p.parse_args()
 
+    enable_compile_cache()
     scene = build_scene(args)
     start = time.time()
     picture = scene.render()

@@ -1,6 +1,8 @@
 """Render the showcase gallery (the reference keeps one in obj/img/).
 
     python examples/gallery.py [outdir]
+
+Every shot is built from generated meshes and textures (tpu_renderer.scenes).
 """
 import os
 import sys
@@ -10,30 +12,20 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import tpu_renderer as tr
-from tpu_renderer.models.gizmos import make_cube, make_floor
+from tpu_renderer.models.gizmos import make_cube, noise_diffuse_texture
+from tpu_renderer.scenes import flagship_figure as figure
+from tpu_renderer.scenes import flagship_floor as textured_floor
+from tpu_renderer.utils.compile_cache import enable_compile_cache
 from tpu_renderer.utils.image import save_frame
 
-ASSETS = "/root/reference/obj"
 RES = (640, 640)
 
 
-def diablo(textured=True):
-    m = tr.Model.load_model(os.path.join(ASSETS, "diablo3_pose/diablo3_pose.obj"))
-    if textured:
-        m.textures.register("normals",
-                            os.path.join(ASSETS, "diablo3_pose/diablo3_pose_nm_tangent.tga"),
-                            tangent=True)
-        m.textures.register("diffuse",
-                            os.path.join(ASSETS, "diablo3_pose/diablo3_pose_diffuse.tga"),
-                            normalize=False)
-    return m
-
-
-def textured_floor():
-    f = make_floor(2.0, y=-1.0)
-    f.textures.register("diffuse", os.path.join(ASSETS, "floor_diffuse.tga"),
+def textured_cube():
+    c = make_cube(1.0)
+    c.textures.register("diffuse", noise_diffuse_texture(5, 256),
                         normalize=False)
-    return f
+    return c
 
 
 def cam(**kw):
@@ -57,41 +49,43 @@ def scene(*models, light=None, **kw):
 
 
 def main(outdir="gallery"):
+    enable_compile_cache()
     os.makedirs(outdir, exist_ok=True)
     shots = {}
 
-    shots["01_shadow_volumes"] = scene(diablo(), textured_floor(),
+    shots["01_shadow_volumes"] = scene(figure(), textured_floor(),
                                        shadows=True)
-    shots["02_normal_mapping"] = scene(diablo(), camera=cam(
+    shots["02_normal_mapping"] = scene(figure(), camera=cam(
         position=(0.3, 1.2, 2.2), center=(0, 0.4, 0), fovy=50))
     shots["03_skybox"] = scene(
-        diablo(), textured_floor(), shadows=True,
-        skymap=tr.CubeMap(**{s: os.path.join(ASSETS, "skybox", f"{s}.jpg")
-                             for s in ("back", "bottom", "front", "left",
-                                       "right", "top")}))
+        figure(), textured_floor(), shadows=True,
+        skymap=tr.CubeMap(**{s: noise_diffuse_texture(10 + i, 256)
+                             for i, s in enumerate(
+                                 ("back", "bottom", "front", "left", "right",
+                                  "top"))}))
     shots["04_spot_light"] = scene(
-        diablo(), textured_floor(), shadows=True,
+        figure(), textured_floor(), shadows=True,
         light=tr.Light((3, 5, 2), light_type=tr.Lightning.SPOT_LIGHTNING,
                        center=(0, 0, 0), ambient_strength=0.08,
                        specular_strength=0.3, linear=1e-9, quadratic=1e-10))
-    shots["05_pbr"] = scene(diablo(textured=False), shader="pbr", camera=cam(
+    shots["05_pbr"] = scene(figure(textured=False), shader="pbr", camera=cam(
         position=(0.3, 1.2, 2.2), center=(0, 0.4, 0), fovy=50))
-    shots["06_wireframe"] = scene(diablo(textured=False), shader="wireframe",
+    shots["06_wireframe"] = scene(figure(textured=False), shader="wireframe",
                                   camera=cam(position=(0.3, 1.0, 2.4),
                                              center=(0, 0.3, 0), fovy=55))
-    shots["07_mtl_cube"] = scene(
-        tr.Model.load_model(os.path.join(ASSETS, "obj_loader_test/cube.obj")),
+    shots["07_textured_cube"] = scene(
+        textured_cube(),
         camera=cam(position=(1.6, 1.4, 2.4), center=(0.5, 0.5, 0.5), fovy=55,
                    backface_culling=True),
         light=tr.Light((3, 4, 2), ambient_strength=0.15))
     shots["08_frustum_overlay"] = scene(
-        diablo(), shadows=True,
+        figure(), shadows=True,
         debug_camera=tr.Camera((0, 3, 0.01), center=(0, 0, 0), fovy=80,
                                near=1, far=3))
-    shots["09_orthographic"] = scene(diablo(), camera=cam(
+    shots["09_orthographic"] = scene(figure(), camera=cam(
         position=(0.5, 1.0, 2.0), fovy=30,
         projection_type=tr.PROJECTION_TYPE.ORTHOGRAPHIC))
-    shots["10_gouraud"] = scene(diablo(textured=False), shader="gouraud")
+    shots["10_gouraud"] = scene(figure(textured=False), shader="gouraud")
 
     for name, s in shots.items():
         frame = s.render()

@@ -1,12 +1,13 @@
 """Test harness configuration.
 
 Forces JAX onto a virtual 8-device CPU platform so every test — including the
-multi-chip sharding tests — runs without TPU hardware (SURVEY.md §4c).
+multi-chip sharding tests — runs without an accelerator (SURVEY.md §4c).
 
-Also provides the ``reference`` fixture: the NumPy reference renderer imported
-from /root/reference as a behavioral oracle (we execute it for golden
-comparisons; we never copy its code). The reference has a dead ``numba`` import
-(triangular.py:3) and pre-NumPy-2.0 API usage, shimmed here.
+Also provides the ``reference`` fixture: the NumPy reference renderer, imported
+from a checkout of it at ``REFERENCE_ROOT`` as a behavioral oracle (we execute
+it for golden comparisons; we never copy its code). The reference has a dead
+``numba`` import (triangular.py:3) and pre-NumPy-2.0 API usage, shimmed here.
+Tests that need the reference or its asset files skip when it is absent.
 """
 import os
 import sys
@@ -22,17 +23,16 @@ if "--xla_force_host_platform_device_count" not in _flags:
         _flags + " --xla_force_host_platform_device_count=8"
     ).strip()
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/jax"))
-
 import jax
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 8)
+
+from tpu_renderer.utils.compile_cache import enable_compile_cache  # noqa: E402
+
 # Persist compiled executables across suite runs (the suite compiles
 # hundreds of render programs; warm-cache runs skip all of it).
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ["JAX_COMPILATION_CACHE_DIR"])
+enable_compile_cache()
 
 import numpy as np
 import pytest
@@ -85,9 +85,16 @@ class ReferenceModules:
 _REF = None
 
 
+def require_reference():
+    """Skip the calling test when the reference checkout is absent."""
+    if not os.path.isdir(REFERENCE_OBJ):
+        pytest.skip(f"reference renderer not present at {REFERENCE_ROOT}")
+
+
 @pytest.fixture(scope="session")
 def reference():
     global _REF
+    require_reference()
     if _REF is None:
         _REF = ReferenceModules()
     return _REF
@@ -95,6 +102,7 @@ def reference():
 
 @pytest.fixture(scope="session")
 def diablo_path():
+    require_reference()
     return os.path.join(REFERENCE_OBJ, "diablo3_pose", "diablo3_pose.obj")
 
 

@@ -2,29 +2,24 @@
 
 The reference has no instancing — each of its models re-runs the full
 Python pipeline (core.py:592-614). Here instancing is first-class:
-``Model.concat`` merges transformed copies into one mesh (one vertex-stage
-matmul on the MXU, one silhouette reduction), and naive multi-model scenes
-share one texture atlas + window-grid block on device via Scene's packing
-cache (scene.py::_pack_model / _windows_all). Both paths must render
-identically.
+``Model.concat`` merges transformed copies into one mesh (one vertex stage,
+one silhouette reduction). Merged and separate instances must render
+identically. The mesh is the flagship scene's generated ~5k-face figure.
 """
-import os
-
 import numpy as np
 import pytest
 
 import tpu_renderer as tr
+from tpu_renderer.models import gizmos
 
-DIABLO_DIR = "/root/reference/obj/diablo3_pose"
 RES = (96, 96)
 
 
-def _diablo(textured=True):
-    m = tr.Model.load_model(os.path.join(DIABLO_DIR, "diablo3_pose.obj"))
+def _figure(textured=True):
+    m = gizmos.make_noise_figure(seed=0)
     if textured:
-        m.textures.register(
-            "diffuse", os.path.join(DIABLO_DIR, "diablo3_pose_diffuse.tga"),
-            normalize=False)
+        m.textures.register("diffuse", gizmos.noise_diffuse_texture(0, 128),
+                            normalize=False)
     return m
 
 
@@ -48,7 +43,7 @@ def test_concat_matches_multi_model():
     """Merged Model.concat geometry renders EXACTLY like the same instances
     added as separate scene models (face order, gids, depth ties, shadow
     silhouettes all line up)."""
-    base = _diablo()
+    base = _figure()
     insts = _instances(base)
 
     s_multi = _scene()
@@ -64,36 +59,15 @@ def test_concat_matches_multi_model():
     np.testing.assert_array_equal(f_merged, f_multi)
 
 
-def test_multi_model_window_dedup():
-    """Instanced copies of one textured mesh share ONE window block: the
-    scene-wide table does not grow with instance count and every instance's
-    ModelConfig points at the shared offset."""
-    base = _diablo()
-    s1 = _scene()
-    s1.add_model(base)
-    cfg1, dyn1 = s1._prepare()
-
-    s3 = _scene()
-    for m in _instances(base):
-        s3.add_model(m)
-    cfg3, dyn3 = s3._prepare()
-
-    assert [mc.win_offset for mc in cfg3.models] == [0, 0, 0]
-    assert dyn3["windows_all"].shape == dyn1["windows_all"].shape
-    # Texture atlas shared by identity across the packed models.
-    stacks = {id(md["kd_stack"]) for md in dyn3["models"]}
-    assert len(stacks) == 1
-
-
 def test_concat_requires_shared_assets():
-    base = _diablo(textured=False)
-    other = _diablo(textured=False)   # separate load: different objects
+    base = _figure(textured=False)
+    other = _figure(textured=False)   # separate load: different objects
     with pytest.raises(ValueError):
         tr.Model.concat([base, other])
 
 
 def test_concat_offsets_vertices_only():
-    base = _diablo(textured=False)
+    base = _figure(textured=False)
     insts = [base @ tr.translation([i, 0, 0]) for i in range(3)]
     m = tr.Model.concat(insts)
     nv = len(base.vertices)
@@ -105,13 +79,3 @@ def test_concat_offsets_vertices_only():
     # uv / normal / material index columns untouched.
     np.testing.assert_array_equal(fa[:, :, 1:],
                                   np.tile(base.face_array[:, :, 1:], (3, 1, 1)))
-
-
-def test_sampler_cap_gate():
-    """Past SMEM_FACE_CAP the pipeline must fall back to the XLA gather
-    (sampler off) instead of tripping the kernel's SMEM assert."""
-    from tpu_renderer.ops import raster_pallas as rp
-    # The gate compares the padded face-batch length against the cap; this
-    # pins the configured cap itself (raised from the round-3 value of
-    # 32768 after measuring real SMEM headroom on v5e).
-    assert rp.SMEM_FACE_CAP >= 131072

@@ -17,6 +17,12 @@ def diablo(diablo_path):
     return Model.load_model(diablo_path)
 
 
+@pytest.fixture(scope="module")
+def figure():
+    """The generated ~5k-face stand-in for the reference's demo mesh."""
+    return gizmos.make_noise_figure(seed=0)
+
+
 def test_load_diablo_matches_reference(reference, diablo, diablo_path):
     ref = reference.core.Model.load_model(diablo_path)
     np.testing.assert_array_equal(diablo.vertices, ref.vertices)
@@ -68,11 +74,11 @@ def test_material_alias_fixed():
         m.not_an_attribute  # noqa: B018
 
 
-def test_matmul_is_pure(diablo):
-    before = diablo.vertices.copy()
-    moved = diablo @ T.scale(2.0) @ T.translation([1, 0, 0])
-    np.testing.assert_array_equal(diablo.vertices, before)
-    assert moved is not diablo
+def test_matmul_is_pure(figure):
+    before = figure.vertices.copy()
+    moved = figure @ T.scale(2.0) @ T.translation([1, 0, 0])
+    np.testing.assert_array_equal(figure.vertices, before)
+    assert moved is not figure
     expected = before @ np.asarray(T.scale(2.0)) @ np.asarray(T.translation([1, 0, 0]))
     np.testing.assert_allclose(moved.vertices, expected, atol=1e-4)
 
@@ -109,10 +115,10 @@ def test_edge_table_silhouette_parity(reference, diablo, diablo_path):
     assert len(theirs) > 100  # sanity: a real silhouette
 
 
-def test_edge_table_direction_semantics(diablo):
+def test_edge_table_direction_semantics(figure):
     """Every incidence direction is one of the edge's two orientations."""
-    et = diablo.edge_table
-    fv = diablo.face_array[:, :, 0]
+    et = figure.edge_table
+    fv = figure.face_array[:, :, 0]
     assert et.incidence_edge.shape == (3 * len(fv),)
     assert et.incidence_dir.shape == (3 * len(fv), 2)
     # Directed pairs reconstruct the face loops.
@@ -280,7 +286,28 @@ def test_texture_register_after_render_takes_effect():
                      subsystem=tr.SUBSYSTEM.OPENGL)
     scene.add_model(floor)
     before = scene.render()
-    floor.textures.register("diffuse", "/root/reference/obj/grid.tga",
+    floor.textures.register("diffuse", gizmos.floor_texture(seed=1, size=32),
                             normalize=False)
     after = scene.render()
     assert (before != after).any()
+
+
+def test_texture_register_array_matches_file(tmp_path):
+    """An (H, W, 3) array in [0, 1] registers exactly like the same image
+    read from a file, for color maps and normalized tangent normal maps."""
+    Image = pytest.importorskip("PIL.Image")
+    img = gizmos.noise_normal_texture(seed=3, size=48)
+    path = str(tmp_path / "nm.png")
+    Image.fromarray(np.round(img * 255).astype(np.uint8)).save(path)
+
+    from_file, from_array = gizmos.make_cube(), gizmos.make_cube()
+    for model, src in ((from_file, path), (from_array, img)):
+        model.textures.register("normals", src, tangent=True)
+        model.textures.register("diffuse", src, normalize=False)
+    a = from_file.materials["default"]
+    b = from_array.materials["default"]
+    np.testing.assert_array_equal(a.map_Kd, b.map_Kd)
+    np.testing.assert_array_equal(a.norm, b.norm)
+    assert b.norm.dtype.metadata["tangent"] is True
+    with pytest.raises(ValueError):
+        gizmos.make_cube().textures.register("diffuse", img[..., :2])

@@ -1,14 +1,13 @@
-"""Native (C++) OBJ loader parity with the Python parser."""
+"""Native (C++) OBJ loader parity with the Python parser, on OBJ files
+written from the generated ~5k-face figure and a quad-faced box."""
 import time
 
 import numpy as np
 import pytest
 
-from tpu_renderer.models import native
+from tpu_renderer.models import gizmos, native
 from tpu_renderer.models.model import Model
-
-DIABLO = "/root/reference/obj/diablo3_pose/diablo3_pose.obj"
-CUBE = "/root/reference/obj/obj_loader_test/cube.obj"
+from tpu_renderer.utils.objwrite import write_obj, write_textured_box
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -17,8 +16,24 @@ def require_native():
         pytest.skip("no C++ toolchain available")
 
 
-@pytest.mark.parametrize("path", [DIABLO, CUBE])
-def test_native_matches_python(path):
+@pytest.fixture(scope="module")
+def obj_files(tmp_path_factory):
+    """{"figure": path, "box": path}: the figure with per-corner uv and
+    vertex normals (v/vt/vn triples), and a box of six quads."""
+    root = tmp_path_factory.mktemp("objs")
+    fig = gizmos.make_noise_figure(seed=0)
+    fa = fig.face_array
+    faces = [[tuple(int(i) for i in corner[:3]) for corner in face]
+             for face in fa]
+    figure = write_obj(str(root / "figure.obj"), fig.vertices[:, :3],
+                       fig.uv[:, :2], fig.normals, faces)
+    box = write_textured_box(str(root / "box.obj"), None)
+    return {"figure": figure, "box": box}
+
+
+@pytest.mark.parametrize("name", ["figure", "box"])
+def test_native_matches_python(obj_files, name):
+    path = obj_files[name]
     py = Model.load_model(path, use_native=False)
     nat = Model.load_model(path, use_native=True)
     np.testing.assert_array_equal(nat.vertices, py.vertices)
@@ -35,14 +50,15 @@ def test_native_matches_python(path):
     assert set(nat.materials) == set(py.materials)
 
 
-def test_native_is_faster():
+def test_native_is_faster(obj_files):
+    path = obj_files["figure"]
     t = time.perf_counter()
     for _ in range(3):
-        Model.load_model(DIABLO, use_native=False)
+        Model.load_model(path, use_native=False)
     py_dt = (time.perf_counter() - t) / 3
     t = time.perf_counter()
     for _ in range(3):
-        Model.load_model(DIABLO, use_native=True)
+        Model.load_model(path, use_native=True)
     nat_dt = (time.perf_counter() - t) / 3
     assert nat_dt < py_dt, (nat_dt, py_dt)
 

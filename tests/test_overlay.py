@@ -101,10 +101,56 @@ def test_draw_line_matches_reference(reference):
     np.testing.assert_array_equal(zb_ours, zb_ref)
 
 
+def _host_dda_mask(p0, p1, h, w):
+    """Pixels the host wireframe loop visits (overlay.draw_wireframe with
+    an empty z-buffer): every DDA point, truncated, in the open interior."""
+    mask = np.zeros((h, w), bool)
+    for a, b in zip(p0, p1):
+        for x, y, _ in bresenham_line(a, b):
+            r, c = int(y), int(x)
+            if 0 < r < h - 1 and 0 < c < w - 1:
+                mask[r, c] = True
+    return mask
+
+
+def test_pack_lines_inverts_dda():
+    """ops/lines.pack_lines + wireframe_mask (the device wireframe's closed
+    form DDA inversion) light the pixels lines.bresenham_line walks, for
+    random edges of every slope and direction, partly off-frame."""
+    import jax.numpy as jnp
+
+    from tpu_renderer.ops.lines import pack_lines, wireframe_mask
+
+    h, w = 48, 64
+    rng = np.random.default_rng(11)
+    n = 60
+    p0 = np.zeros((n, 3))
+    p1 = np.zeros((n, 3))
+    p0[:, :2] = rng.uniform(-10, 70, (n, 2))
+    p1[:, :2] = rng.uniform(-10, 70, (n, 2))
+    p1[:4, :2] = p0[:4, :2] + rng.uniform(-0.4, 0.4, (4, 2))   # sub-pixel
+    p0[4, :2] = p1[4, :2] = (20.5, 30.25)                      # zero length
+    p0, p1 = p0.astype(np.float32), p1.astype(np.float32)
+
+    lines = pack_lines(jnp.asarray(p0), jnp.asarray(p1))
+    device = np.asarray(wireframe_mask(lines, jnp.ones(n, bool),
+                                       jnp.full((h, w), jnp.inf)))
+    host = _host_dda_mask(p0.astype(np.float64), p1.astype(np.float64), h, w)
+    assert host.sum() > 500
+    # f32 closed form vs the host's f64 walk may truncate a boundary point
+    # differently; everything else must agree.
+    assert (device != host).sum() <= 0.01 * host.sum()
+    assert device[30, 20]              # the zero-length edge's one pixel
+    for k in range(4):                 # sub-pixel edges (0 < steps < 1)
+        one = np.asarray(wireframe_mask(lines[k:k + 1], jnp.ones(1, bool),
+                                        jnp.full((h, w), jnp.inf)))
+        assert not one.any()
+
+
 @pytest.mark.parametrize("shader", ["wireframe", "points"])
 def test_device_debug_shaders_match_host(shader):
-    """The device wireframe/points path (pipeline.render_debug_frame: Pallas
-    DDA line kernel / scatter-max splat) against the host per-face loop
+    """The device wireframe/points path (pipeline.render_debug_frame: closed
+    form DDA inversion / scatter-max splat) against the host per-face loop
     implementation it replaced (Scene._render_debug_shader_host). f32 device
     math vs the host's f64 can flip trunc decisions on boundary pixels —
     require near-total agreement, not bit equality."""

@@ -5,17 +5,18 @@ import pytest
 import jax
 
 import tpu_renderer as tr
-from tpu_renderer.models.gizmos import make_cube, make_floor
+from tpu_renderer.models.gizmos import floor_texture, make_cube, make_floor
 from tpu_renderer.parallel.mesh import make_render_mesh
 from tpu_renderer.parallel.sharded import render_frame_sharded
 from tpu_renderer.ops.pipeline import render_frame_jit
+from tpu_renderer.scenes import flagship_figure
 
 
 def _scene(resolution=(64, 64)):
     cube = make_cube(1.0)
     cube.shadowing = True          # gizmo factories default to non-casting
     floor = make_floor(2.0, y=-0.6)
-    floor.textures.register("diffuse", "/root/reference/obj/floor_diffuse.tga",
+    floor.textures.register("diffuse", floor_texture(seed=5, size=64),
                             normalize=False)
     light = tr.Light((3, 4, 2), light_type=tr.Lightning.POINT_LIGHTNING,
                      ambient_strength=0.1, specular_strength=0.3)
@@ -62,147 +63,6 @@ def test_stencil_content_nontrivial():
     assert (st != 0).any(), "shadow stencil should mark some pixels"
 
 
-@pytest.mark.parametrize("shape", [(8, 1), (4, 2), (2, 4)])
-def test_sharded_pallas_matches_single_chip(shape):
-    """The production Pallas kernels under shard_map (interpret mode): tile
-    grids shift by row0 and per-shard buffers merge with pmin/pmax/psum;
-    pixel math stays in global coordinates, so the frame, stencil and
-    z-buffer must match single-chip Pallas bit-for-bit."""
-    n_rows, n_tris = shape
-    assert len(jax.devices()) >= n_rows * n_tris
-    scene = _scene()
-    scene.backend = "pallas"
-    cfg, dyn = _cfg_dyn(scene)
-    assert cfg.backend == "pallas" and cfg.pallas_interpret
-
-    single, zb1, tid1, st1 = render_frame_jit(cfg, dyn)
-    mesh = make_render_mesh(jax.devices()[:n_rows * n_tris], n_tris=n_tris)
-    sharded, zb2, tid2, st2 = render_frame_sharded(cfg, dyn, mesh)
-
-    single = np.asarray(single)
-    sharded = np.asarray(sharded)
-    same = (single == sharded).all(axis=-1)
-    assert same.mean() >= 0.999, f"only {same.mean():.4f} identical"
-    np.testing.assert_array_equal(np.asarray(st1), np.asarray(st2))
-    np.testing.assert_allclose(np.asarray(zb1), np.asarray(zb2), rtol=1e-6)
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("shape", [(4, 2), (2, 4)])
-def test_sharded_pallas_diablo_scale(shape):
-    """Realistic scale: the 5k-face diablo mesh (real silhouettes, nontrivial
-    incidence tables) at 256x192, sharded over the Pallas kernels. Exercises
-    pad_models_for_tris, the global-silhouette psum, per-shard quad slices
-    and the incidence-order pmax path."""
-    n_rows, n_tris = shape
-    d = tr.Model.load_model(
-        "/root/reference/obj/diablo3_pose/diablo3_pose.obj")
-    floor = make_floor(2.0, y=-1.0)
-    floor.shadowing = False
-    light = tr.Light((5, 5, 0), light_type=tr.Lightning.POINT_LIGHTNING,
-                     center=(0, 0.5, 0.5), ambient_strength=0.1,
-                     specular_strength=0.1, linear=1e-9, quadratic=1e-10)
-    cam = tr.Camera((0.5, 3, 5), center=(0, 0, 0), fovy=90, near=1e-4,
-                    far=400)
-    scene = tr.Scene(cam, light, shadows=True, resolution=(256, 192),
-                     system=tr.SYSTEM.LH, subsystem=tr.SUBSYSTEM.OPENGL,
-                     backend="pallas")
-    scene.add_model(d)
-    scene.add_model(floor)
-    cfg, dyn = _cfg_dyn(scene)
-
-    single, zb1, tid1, st1 = render_frame_jit(cfg, dyn)
-    mesh = make_render_mesh(jax.devices()[:n_rows * n_tris], n_tris=n_tris)
-    sharded, zb2, tid2, st2 = render_frame_sharded(cfg, dyn, mesh)
-
-    single = np.asarray(single)
-    sharded = np.asarray(sharded)
-    same = (single == sharded).all(axis=-1)
-    assert same.mean() >= 0.999, f"only {same.mean():.4f} identical"
-    assert (np.asarray(st1) != 0).any()
-    np.testing.assert_array_equal(np.asarray(st1), np.asarray(st2))
-    np.testing.assert_allclose(np.asarray(zb1), np.asarray(zb2), rtol=1e-6)
-
-
-@pytest.mark.parametrize("shape", [(8, 1), (2, 4)])
-@pytest.mark.parametrize("shader", ["gouraud", "pbr"])
-def test_sharded_slim_gbuffer_matches_single_chip(shape, shader):
-    """Slim G-buffer layouts (flat/gouraud/pbr) under sharding: rows-only
-    shards run the fused slim kernel with row0; tris shards interpolate the
-    slim channels via gbuffer_pallas against merged buffers and psum the
-    zero-filled partials."""
-    n_rows, n_tris = shape
-    scene = _scene((64, 64))
-    scene.backend = "pallas"
-    scene.shader = shader
-    cfg, dyn = _cfg_dyn(scene)
-    assert cfg.shader == shader and cfg.backend == "pallas"
-
-    single, zb1, tid1, st1 = render_frame_jit(cfg, dyn)
-    mesh = make_render_mesh(jax.devices()[:n_rows * n_tris], n_tris=n_tris)
-    sharded, zb2, tid2, st2 = render_frame_sharded(cfg, dyn, mesh)
-
-    single = np.asarray(single)
-    sharded = np.asarray(sharded)
-    same = (single == sharded).all(axis=-1)
-    assert same.mean() >= 0.999, f"only {same.mean():.4f} identical"
-    np.testing.assert_allclose(np.asarray(zb1), np.asarray(zb2), rtol=1e-6)
-
-
-@pytest.mark.parametrize("shape", [(8, 1), (2, 4)])
-def test_sharded_windowed_sampler_matches_single_chip(shape):
-    """The in-kernel windowed texture sampler under sharding: rows-only
-    shards run it fused (visibility_gbuffer_pallas with row0), tris shards
-    run the standalone kernel against merged buffers and psum the partial
-    samp/mask planes. Forced on via tex_kernel (auto only enables it at
-    512^2+)."""
-    n_rows, n_tris = shape
-    scene = _scene((64, 64))
-    scene.backend = "pallas"
-    scene.tex_kernel = True
-    cfg, dyn = _cfg_dyn(scene)
-
-    single, zb1, tid1, st1 = render_frame_jit(cfg, dyn)
-    mesh = make_render_mesh(jax.devices()[:n_rows * n_tris], n_tris=n_tris)
-    sharded, zb2, tid2, st2 = render_frame_sharded(cfg, dyn, mesh)
-
-    single = np.asarray(single)
-    sharded = np.asarray(sharded)
-    same = (single == sharded).all(axis=-1)
-    assert same.mean() >= 0.999, f"only {same.mean():.4f} identical"
-
-
-@pytest.mark.parametrize("shape", [(8, 1), (2, 4)])
-def test_sharded_two_shape_groups_matches_single_chip(shape):
-    """Second texture shape-group under sharding: the cube's kd gets one
-    shape and its normal map another, so both the fused kernel (rows-only)
-    and the standalone sampler (tris shards) run the group-2 pass
-    (raster_pallas two_groups=True) — must stay bit-compatible."""
-    n_rows, n_tris = shape
-    scene = _scene((64, 64))
-    cube = scene.models[0]
-    rng = np.random.default_rng(3)
-    dt = np.dtype(np.float32, metadata={"tangent": False})
-    for m in cube.materials.values():
-        m.map_Kd = np.asarray(rng.random((32, 256, 3)), dtype=dt)
-        m.norm = np.asarray(rng.random((32, 128, 3)) * 2 - 1, dtype=dt)
-    cube.normal_map_is_tangent = False
-    cube.bump_version()
-    scene.backend = "pallas"
-    scene.tex_kernel = True
-    cfg, dyn = _cfg_dyn(scene)
-    assert cfg.models[0].win2, "second shape-group grid not built"
-
-    single, zb1, tid1, st1 = render_frame_jit(cfg, dyn)
-    mesh = make_render_mesh(jax.devices()[:n_rows * n_tris], n_tris=n_tris)
-    sharded, zb2, tid2, st2 = render_frame_sharded(cfg, dyn, mesh)
-
-    single = np.asarray(single)
-    sharded = np.asarray(sharded)
-    same = (single == sharded).all(axis=-1)
-    assert same.mean() >= 0.999, f"only {same.mean():.4f} identical"
-
-
 def test_sharded_prepare_quads_compacts_per_shard():
     """Tris-sharded silhouette compaction: prepare_quads must return
     PER-SHARD tables (O(E / n_shards) rows per chip, silhouettes compacted
@@ -217,8 +77,7 @@ def test_sharded_prepare_quads_compacts_per_shard():
     from tpu_renderer.parallel.sharded import (dyn_partition_specs,
                                                pad_models_for_tris, shard_map)
 
-    d = tr.Model.load_model(
-        "/root/reference/obj/diablo3_pose/diablo3_pose.obj")
+    d = flagship_figure(textured=False)
     light = tr.Light((5, 5, 0), light_type=tr.Lightning.POINT_LIGHTNING,
                      center=(0, 0.5, 0.5), ambient_strength=0.1)
     cam = tr.Camera((0.5, 3, 5), center=(0, 0, 0), fovy=90, near=1e-4,

@@ -34,7 +34,16 @@ def triangulate_int(polygon):
 
 
 def load_texture(name):
-    """Image file -> (H, W, 3) float32 RGB in [0, 1] (reference core.py:100-105)."""
+    """Image file -> (H, W, 3) float32 RGB in [0, 1] (reference core.py:100-105).
+
+    An (H, W, 3) array in [0, 1] passes through as float32, so generated
+    textures need no image file (and no Pillow)."""
+    if not isinstance(name, (str, os.PathLike)):
+        texture = np.asarray(name, dtype=np.float32)
+        if texture.ndim != 3 or texture.shape[-1] != 3:
+            raise ValueError(
+                f"texture array must be (H, W, 3), got {texture.shape}")
+        return texture
     from PIL import Image
 
     texture = Image.open(name).convert("RGB")
@@ -45,10 +54,11 @@ class TextureMaps:
     """Friendly-name texture registration (reference core.py:77-98).
 
     ``register('diffuse'|'ambient'|'specular'|'shininess'|'transparency'|'normals',
-    path, normalize=, tangent=)`` loads the image and attaches it to the model's
-    'default' material under the corresponding MTL key. ``normalize=True`` maps
-    [0,1] -> [-1,1] (for normal maps); ``tangent=True`` marks a tangent-space
-    normal map.
+    path, normalize=, tangent=)`` loads the image (or takes an (H, W, 3)
+    array in [0, 1] in place of the path) and attaches it to the model's
+    'default' material under the corresponding MTL key. ``normalize=True``
+    maps [0,1] -> [-1,1] (for normal maps); ``tangent=True`` marks a
+    tangent-space normal map.
     """
 
     texture_map = {
@@ -286,10 +296,10 @@ class Model:
     def concat(cls, models: List["Model"]) -> "Model":
         """Merge instanced copies of ONE mesh into a single Model.
 
-        The TPU-native instancing primitive: N separate models unroll N
-        vertex stages / silhouette reductions in the jitted frame program,
-        while the merged model runs ONE big (ΣV, 4) @ MVP matmul and one
-        segment reduction — the shapes the MXU actually wants. Vertex ids
+        The instancing primitive: N separate models unroll N vertex stages /
+        silhouette reductions in the jitted frame program, while the merged
+        model runs ONE big (ΣV, 4) @ MVP matmul and one segment reduction.
+        Vertex ids
         are offset per instance; uv / normal / material indices stay valid
         because those arrays are SHARED by reference (``model @ transform``
         shallow-copies them, so instances alias one copy).

@@ -1,6 +1,6 @@
 """ctypes bindings for the native (C++) asset loader.
 
-The hot compute path is JAX/XLA/Pallas; the host-side runtime around it —
+The hot compute path is JAX/XLA; the host-side runtime around it —
 here, asset parsing — is native C++ (native/obj_loader.cpp), compiled on
 first use with the system toolchain and cached next to the package. Falls
 back to the pure-Python parser transparently when no compiler is available.

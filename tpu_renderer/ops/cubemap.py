@@ -12,6 +12,8 @@ functionally.
 """
 from __future__ import annotations
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 
@@ -53,6 +55,10 @@ class CubeMap:
 
     @staticmethod
     def load_texture(name):
+        """Image file -> (T, T, 3) float32 in [0, 1]; an array in [0, 1]
+        passes through, so generated skyboxes need no image file."""
+        if not isinstance(name, (str, os.PathLike)):
+            return np.asarray(name, dtype=np.float32)[..., :3]
         from PIL import Image
 
         texture = np.asarray(Image.open(name), dtype=np.float32)[..., :3]
@@ -64,9 +70,9 @@ class CubeMap:
                                          jnp.asarray(vectors, jnp.float32)))
 
     def as_device_arrays(self):
-        # RGB packed into one u32 texel: a single-element gather is ~15x
-        # cheaper than an f32[..., 3] slice gather on TPU, and the sources
-        # are 8-bit images so u8 quantization reconstructs exactly.
+        # RGB packed into one u32 texel: one indexed element per pixel
+        # instead of a 3-wide slice gather; the sources are 8-bit images,
+        # so u8 quantization reconstructs exactly.
         q = np.round(self.textures * 255).astype(np.uint32)
         packed = q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16)
         return {"textures": jnp.asarray(self.textures),
@@ -79,13 +85,12 @@ def cubemap_index(t, vectors):
     Major-axis face selection and UV normalization matching the reference's
     ``__getitem__`` (cube_map.py:63-80), including its ``* T - 1`` index scale
     (0 maps to texel -1, wrapping to the last row/column) and truncating cast.
-    The -1 wrap uses a conditional add instead of an integer ``%`` (integer
-    div/mod is a per-element scalar loop on TPU).
+    The -1 wrap uses a conditional add instead of an integer ``%``.
     """
     ax, ay, az = vectors[..., 0], vectors[..., 1], vectors[..., 2]
     major = jnp.argmax(jnp.abs(vectors), axis=-1)
-    # Select the major component arithmetically — take_along_axis here is a
-    # per-element XLA gather (~3.2 ms per 512^2 frame, measured).
+    # Select the major component arithmetically instead of a per-element
+    # take_along_axis gather.
     amp = jnp.where(major == 0, ax, jnp.where(major == 1, ay, az))
 
     # np.delete keeps the non-major components in original order:
@@ -162,9 +167,8 @@ def fill_frame_from_skybox(skybox, cam_m, resolution, row0=0):
 
     # The two NDC triangles partition the frame: select each pixel's ray
     # first (second triangle wins on the shared diagonal, like the
-    # reference's sequential overwrite), then sample the cubemap ONCE —
-    # gathers dominate this fill, and the u32-packed single-element gather
-    # is ~15x cheaper than an f32[..., 3] slice gather per pixel.
+    # reference's sequential overwrite), then sample the cubemap ONCE with
+    # the u32-packed single-element gather.
     dirs, covers = [], []
     for i in range(2):
         face = faces[i]
@@ -172,7 +176,7 @@ def fill_frame_from_skybox(skybox, cam_m, resolution, row0=0):
         bar, cover = _corner_barycentric(screen[:, :2], height, width, row0)
         rays = matmul(face, inv_vp)
         rays = rays / rays[:, 3:4]
-        dirs.append(jnp.einsum("hwk,kc->hwc", bar, rays[:, :3]))
+        dirs.append(matmul(bar, rays[:, :3]))
         covers.append(cover)
     ray_dirs = jnp.where(covers[1][..., None], dirs[1], dirs[0])
     covered = covers[0] | covers[1]

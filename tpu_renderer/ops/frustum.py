@@ -1,6 +1,6 @@
 """Frustum-plane math and polygon clipping.
 
-TPU-native equivalent of the reference's ``obj/plane_intersection.py``:
+JAX equivalent of the reference's ``obj/plane_intersection.py``:
 Gribb–Hartmann plane extraction from an MVP matrix (row-vector convention, so
 planes come from matrix *columns*), and Sutherland–Hodgman polygon clipping.
 
@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+from tpu_renderer.ops.transforms import dot, normalize
 
 __all__ = [
     "normalize_plane", "extract_frustum_planes", "line_plane_intersection",
@@ -33,8 +35,7 @@ P_MAX = 16
 
 def normalize_plane(plane):
     """Scale plane coefficients to unit norm (plane_intersection.py:17-21)."""
-    plane = jnp.asarray(plane)
-    return plane / jnp.linalg.norm(plane)
+    return normalize(jnp.asarray(plane))
 
 
 def extract_frustum_planes(matrix):
@@ -53,7 +54,7 @@ def extract_frustum_planes(matrix):
         col(3) + col(2),   # near
         col(3) - col(2),   # far
     ])
-    return planes / jnp.linalg.norm(planes, axis=-1, keepdims=True)
+    return normalize(planes)
 
 
 def extract_frustum_planes_host(matrix):
@@ -86,16 +87,16 @@ def line_plane_intersection(p1, p2, plane):
     p1 = jnp.asarray(p1)
     p2 = jnp.asarray(p2)
     direction = p2 - p1
-    denom = jnp.asarray(plane) @ direction
+    denom = dot(plane, direction)
     parallel = jnp.abs(denom) < 1e-10
-    weight = -(jnp.asarray(plane) @ p1) / jnp.where(parallel, 1.0, denom)
+    weight = -dot(plane, p1) / jnp.where(parallel, 1.0, denom)
     valid = (~parallel) & (weight >= 0) & (weight <= 1)
     return p1 + weight * direction, valid
 
 
 def is_visible(point, plane):
     """Half-space test (plane_intersection.py:39-40)."""
-    return jnp.asarray(plane) @ jnp.asarray(point) >= 0
+    return dot(plane, point) >= 0
 
 
 def _clip_one_plane(verts, count, plane):
@@ -106,9 +107,8 @@ def _clip_one_plane(verts, count, plane):
     edge/plane intersection on a visibility transition — exactly the reference's
     append order (plane_intersection.py:69-83).
 
-    TPU notes (each ~4-12x at 1536-quad shadow batch scale, tools/exp_clip.py):
-    the next vertex comes from a static roll + wrap select instead of a
-    per-element XLA gather, and kept candidates compact via a stable key sort
+    The next vertex comes from a static roll + wrap select instead of a
+    per-element gather, and kept candidates compact via a stable key sort
     (prefix position, dropped slots keyed last) — values move verbatim, unlike
     a one-hot contraction, whose f32 exactness needs precision="highest".
     Slots past the new count keep whatever the sort left there; clip_polygon
@@ -121,15 +121,15 @@ def _clip_one_plane(verts, count, plane):
     nxt = jnp.where((idx + 1 >= count)[:, None], verts[0:1],
                     jnp.roll(verts, -1, axis=0))
 
-    dist_cur = cur @ plane
-    dist_nxt = nxt @ plane
+    dist_cur = dot(cur, plane)
+    dist_nxt = dot(nxt, plane)
     cur_vis = dist_cur >= 0
     nxt_vis = dist_nxt >= 0
 
     # Intersection of (nxt -> cur) with the plane, matching the reference's
     # argument order line_plane_intersection(next_vertex, current_vertex, plane).
     direction = cur - nxt
-    denom = direction @ plane
+    denom = dot(direction, plane)
     parallel = jnp.abs(denom) < 1e-10
     weight = -dist_nxt / jnp.where(parallel, 1.0, denom)
     ip = nxt + weight[:, None] * direction

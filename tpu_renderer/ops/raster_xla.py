@@ -21,9 +21,9 @@ Coverage folds the reference's per-pixel work: barycentric inside test
 perspective-corrected barycentric weights (:80-91), optionally against a debug
 camera's clip space as well.
 
-This path is brute-force O(F·H·W) — it exists for CPU-testable correctness and
-as the oracle for the Pallas TPU kernel (ops/raster_pallas.py), which does the
-same math tile-binned.
+This path is brute-force O(F·H·W): every face is tested against every pixel
+of the (local) frame. It is the one rasterizer, on every device, and the
+reference any faster rasterizer must match bit for bit on z and id.
 """
 from __future__ import annotations
 
@@ -46,8 +46,8 @@ def face_fragments(face, rows, cols, with_clip_test):
     Returns (cov (H, W) bool, z (H, W) f32).
     """
     # Affine barycentric evaluation (coefficients precomputed once per face
-    # in vertex.gather_faces — the same values and the same expression the
-    # Pallas kernels evaluate, keeping the two backends bit-identical).
+    # in vertex.gather_faces; shading.pixel_barycentric evaluates the same
+    # expression).
     aff = face["aff"]
     v = aff[0] * cols + aff[1] * rows + aff[2]
     w = aff[3] * cols + aff[4] * rows + aff[5]
@@ -60,11 +60,9 @@ def face_fragments(face, rows, cols, with_clip_test):
     cov = inside & window & face["valid"]
 
     if with_clip_test:
-        # Linearized perspective-corrected clip test — the EXACT expressions
-        # the Pallas kernel evaluates (raster_pallas._face_tile_cov), term
-        # order included, so the backends stay bit-identical even at the
-        # S -> 0 horizon where the reference's divide form (core.py:155-160,
-        # pb_j = u*iw_j/S then -w < x,y,z < w) rounds differently:
+        # Linearized perspective-corrected clip test. It is algebraically the
+        # reference's divide form (core.py:155-160, pb_j = u*iw_j/S then
+        # -w < x,y,z < w) but rounds differently at the S -> 0 horizon:
         # cond_j / S > 0  <=>  (q_j > 0) == (S > 0), q_j the interpolated
         # inv_w-scaled plane e[i, j] = iw_i * (x_i+w_i, w_i-x_i, ...).
         # S == 0 makes the reference's weights NaN -> every comparison

@@ -7,9 +7,8 @@ object, core.py:138-224). Here shading happens once per frame over the whole
 attributes are gathered with vectorized takes, and every term — perspective-
 correct barycentric, nearest-neighbor texture sampling, tangent-space normal
 mapping (batched closed-form 3x3 inverse), attenuation, spot smoothstep,
-Blinn-Phong halfway specular — is one fused elementwise/gather expression. This
-is the shape XLA fuses well on TPU: no data-dependent control flow, gathers for
-texture access, everything bfloat16-safe f32.
+Blinn-Phong halfway specular — is one fused elementwise/gather expression: no
+data-dependent control flow, gathers for texture access, all in f32.
 
 Semantics preserved bit-for-bit-in-spirit from the reference, including the
 quirks that are user-visible: ambient-only base pass ``clip(0.05, 1)``
@@ -23,11 +22,11 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from tpu_renderer.ops.lightning import Lightning
-from tpu_renderer.ops.transforms import normalize
+from tpu_renderer.ops.transforms import dot, matmul, normalize
 
 __all__ = [
     "pixel_barycentric", "sample_texture", "tangent_basis_normal",
-    "shade_general", "shade_flat", "shade_gouraud", "shade_gouraud_n",
+    "shade_general", "shade_flat", "shade_gouraud",
     "shade_pbr", "smoothstep",
     "mix",
 ]
@@ -113,7 +112,7 @@ def tangent_basis_normal(sampled, pb, world, uv, normals):
     pb: (H, W, 3); world: (H, W, 3, 3) triangle world xyz;
     uv: (H, W, 3, 2); normals: (H, W, 3, 3) vertex normals.
     """
-    n = normalize(jnp.einsum("...k,...kc->...c", pb, normals))
+    n = normalize(matmul(pb, normals))
     a = world[..., 0, :]
     A = jnp.stack([world[..., 1, :] - a, world[..., 2, :] - a, n], axis=-2)
     AI = _inv3x3(A)
@@ -124,10 +123,10 @@ def tangent_basis_normal(sampled, pb, world, uv, normals):
     dv = jnp.stack([uv[..., 1, 1] - uv[..., 0, 1],
                     uv[..., 2, 1] - uv[..., 0, 1],
                     jnp.zeros_like(uv[..., 0, 0])], axis=-1)
-    tangent = normalize(jnp.einsum("...ij,...j->...i", AI, du))
-    bitangent = normalize(jnp.einsum("...ij,...j->...i", AI, dv))
+    tangent = normalize(dot(AI, du[..., None, :]))
+    bitangent = normalize(dot(AI, dv[..., None, :]))
     basis = jnp.stack([tangent, bitangent, n], axis=-1)     # columns T, B, n
-    return jnp.einsum("...ij,...j->...i", basis, sampled)
+    return dot(basis, sampled[..., None, :])
 
 
 def shade_general(pix, light, camera_position, *, shadows_mask=None):
@@ -195,12 +194,7 @@ def shade_flat(face_world_normal, light):
 
 def shade_gouraud(bar, normals, light):
     """Gouraud shading (reference triangular.py:180-182), screen barycentric."""
-    return shade_gouraud_n(jnp.einsum("...k,...kc->...c", bar, normals), light)
-
-
-def shade_gouraud_n(n, light):
-    """Gouraud from a pre-interpolated (H, W, 3) vertex normal — shared by
-    the XLA gather path and the slim G-buffer kernel path."""
+    n = matmul(bar, normals)
     intensity = jnp.clip(jnp.sum(n * light["direction"], axis=-1), 0, 1)
     return intensity[..., None] * jnp.full(3, 255.0)
 

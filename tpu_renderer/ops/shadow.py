@@ -34,8 +34,7 @@ import jax.numpy as jnp
 
 from tpu_renderer.ops.frustum import clip_polygon
 from tpu_renderer.ops.lightning import Lightning
-from tpu_renderer.ops.transforms import matmul, normalize
-from tpu_renderer.ops.vertex import linearize_z
+from tpu_renderer.ops.transforms import dot, matmul, normalize
 
 __all__ = ["silhouette_edges", "extrude_quads", "shadow_stencil"]
 
@@ -60,7 +59,7 @@ def silhouette_edges(verts, vid, pad_valid, inc_edge, inc_dir, inc_valid,
     """
     world = verts[vid][..., :3]
     n = jnp.cross(world[:, 1] - world[:, 0], world[:, 2] - world[:, 0])
-    light_facing = (n @ light_position > 0) & pad_valid          # (Fp,)
+    light_facing = (dot(n, light_position) > 0) & pad_valid      # (Fp,)
 
     inc_lf = jnp.repeat(light_facing, 3) & inc_valid             # (3Fp,)
     parity = jax.ops.segment_sum(inc_lf.astype(jnp.int32), inc_edge,
@@ -119,9 +118,7 @@ def quad_edge_coeffs(sx, sy, counts, front):
     """Edge half-plane functions of a convex screen polygon, orientation
     folded in: inside requires A*x + B*y + K > 0 on every edge. Inactive
     edge slots encode (0, 0, 1) — an always-true test — so consumers need
-    no per-edge active mask. Shared (same f32 ops, hence bit-identical
-    values) by pack_quads / the Pallas stencil kernel and the XLA
-    _quad_fragments path. sx, sy: (..., 12); counts, front: (...,)."""
+    no per-edge active mask. sx, sy: (..., 12); counts, front: (...,)."""
     fs = jnp.where(front, 1.0, -1.0)[..., None]
     slots = jnp.arange(sx.shape[-1])
     wrap = slots + 1 >= counts[..., None]
@@ -167,35 +164,31 @@ def _quad_fragments(poly, count, ok, zb_sign, rows, cols, sign, near, far,
     nrm = jnp.cross(a3 - poly[1, :3], a3 - poly[2, :3])
     is_front = nrm[2] < 0
     Ax, By, Cz = nrm[0], nrm[1], nrm[2]
-    D = -(a3 @ nrm)
+    D = -dot(a3, nrm)
 
     # No bbox window test: the polygon is convex and its ceil'd bbox
     # CONTAINS the strict-edge-test interior (a pixel at or beyond the
     # extreme vertex of a convex polygon cannot be strictly inside every
     # half-plane), so the reference's bbox crop (transformation.py:35-43)
-    # only bounds ITERATION, never coverage. The Pallas stencil kernel
-    # drops the same test — identical mask expressions keep the backends
-    # bit-identical. box_valid still gates fully-off-frame polygons.
+    # only bounds ITERATION, never coverage. box_valid still gates
+    # fully-off-frame polygons.
     _, box_valid = _masked_bound_box(sx, sy, active, height, width)
 
     # Point-in-convex-polygon by edge half-planes (triangular.py:305-316):
     # orientation folded into the coefficients (multiplying by ±1.0 is exact
     # in f32, so front/back semantics are unchanged); inactive slots encode
-    # an always-true test. Same coefficient values and the same evaluation
-    # expression as the Pallas stencil kernel — bit-identical stencils.
+    # an always-true test.
     eA, eB, eK = quad_edge_coeffs(sx, sy, count, is_front)
     inside = jnp.ones(rows.shape[0:1] + cols.shape[1:2], bool)
     for i in range(n):
         inside &= (eA[i] * cols + eB[i] * rows + eK[i]) > 0
 
-    # Plane-equation depth + linearization (triangular.py:351-354), in the
-    # divide-free multiply-compare form the Pallas stencil kernel uses (same
-    # coefficient and evaluation expressions — identical stencils):
+    # Plane-equation depth + linearization (triangular.py:351-354), in a
+    # divide-free multiply-compare form:
     # zb >= sign*lin(zraw) <=> (zb*q - sign*nf2 >= 0) == (q > 0) with
     # q = (far+near) - zraw*(far-near). Background pixels (z-buffer never
     # written) are excluded: shading never reads the stencil there (pass 3
-    # shades face pixels only, core.py:624), and the restriction enables the
-    # Pallas path's z-occlusion binning prune.
+    # shades face pixels only, core.py:624).
     czs = jnp.where(Cz == 0, 1.0, Cz)
     zx, zy, zd = -Ax / czs, -By / czs, -D / czs
     zraw = zx * cols + zy * rows + zd
@@ -205,8 +198,6 @@ def _quad_fragments(poly, count, ok, zb_sign, rows, cols, sign, near, far,
     # Corner (accepted): when qden < 0 the >= boundary flips to >, and the
     # multiply rounds ~1 ulp differently from the reference's divide — only
     # exact-equality boundary pixels can differ, within golden tolerance.
-    # Pallas stencil_pallas uses the identical expression, so the two
-    # backends stay bit-identical regardless.
     pass_z = (((zb_sign * qden - sign * nf2 >= 0) == (qden > 0))
               & (zb_sign < 3e38))
 
@@ -223,10 +214,7 @@ def prepare_quads(cfg, dyn, cam_m, axis_name=None, shard_idx=0):
     silhouette count and ``caps`` an ascending tuple of static per-shard
     compaction capacities (silhouette rows live in ``screen[:c]`` for the
     smallest level c with ``n_sil <= c * n_shards``; None when compaction
-    didn't apply). Shared by the XLA scan rasterizer below and the Pallas
-    stencil kernel (ops/raster_pallas.py), whose callers pick the smallest
-    covering level with a nested lax.cond so binning + rasterization run on
-    the tightest compact prefix.
+    didn't apply).
 
     With ``axis_name`` set (triangle sharding), the returned tables are
     per-shard: the globally-identical silhouette-first order (parity counts
@@ -339,8 +327,8 @@ def prepare_quads(cfg, dyn, cam_m, axis_name=None, shard_idx=0):
     return screen, counts, ok, n_sil, sil_caps
 
 
-def shadow_stencil(cfg, dyn, cam_m, zbuf, row0=0, quad_slice=None,
-                   axis_name=None, shard_idx=0):
+def shadow_stencil(cfg, dyn, cam_m, zbuf, row0=0, axis_name=None,
+                   shard_idx=0):
     """Full-frame signed stencil buffer for all shadow-casting models.
 
     Honors Model.shadowing (the reference never consults it, SURVEY.md §2
@@ -348,7 +336,6 @@ def shadow_stencil(cfg, dyn, cam_m, zbuf, row0=0, quad_slice=None,
 
     ``row0`` offsets pixel rows for frame-row sharding (the local frame shape
     comes from ``zbuf``; bound-box clamps stay in global coordinates).
-    ``quad_slice`` = (start, size) rasterizes only a contiguous quad subset.
     With ``axis_name`` set, prepare_quads already returns per-shard tables
     (each shard clipped/projected only its slice of the global
     silhouette-first order), so this rasterizes the local table as-is and
@@ -364,12 +351,6 @@ def shadow_stencil(cfg, dyn, cam_m, zbuf, row0=0, quad_slice=None,
     if prepared is None:
         return jnp.zeros((local_height, width), jnp.int32)
     screen, counts, ok = prepared[:3]
-
-    if quad_slice is not None:
-        start, size = quad_slice
-        screen = jax.lax.dynamic_slice_in_dim(screen, start, size, axis=0)
-        counts = jax.lax.dynamic_slice_in_dim(counts, start, size, axis=0)
-        ok = jax.lax.dynamic_slice_in_dim(ok, start, size, axis=0)
 
     rows = jnp.arange(local_height, dtype=jnp.float32)[:, None] + row0
     cols = jnp.arange(width, dtype=jnp.float32)[None, :]

@@ -1,6 +1,6 @@
 """Transform-matrix library: the L0 math core.
 
-TPU-native re-implementation of the reference's ``obj/transformation.py`` as pure,
+JAX re-implementation of the reference's ``obj/transformation.py`` as pure,
 jit-traceable ``jax.numpy`` functions. Every matrix follows the reference's
 **row-vector convention** (points are rows; matrices right-multiply:
 ``vertices @ M``, reference core.py:350-352, triangular.py:37), which is why e.g.
@@ -52,14 +52,38 @@ def _flt():
     return jnp.result_type(float)
 
 
-def matmul(a, b):
-    """Full-precision f32 matmul.
+def dot(a, b):
+    """Sum over the last axis of ``a * b``, added in index order.
 
-    JAX's default matmul precision may run f32 contractions through bf16 passes;
-    geometry math (matrix composition, vertex transforms) needs true f32 —
-    rasterization coverage is sign-sensitive.
+    The small contractions of the render path (3- and 4-vectors, 4x4
+    matrices) are written as elementwise products and adds instead of XLA
+    dots: a dot lowers per backend (a GEMM library, tree or sequential
+    sums) and rounds differently on each, while these elementwise ops round
+    identically on every device. Coverage, depth and stencil decisions are
+    sign-sensitive at the last ulp, so this keeps z, ids and stencil
+    bit-identical between devices. It also leaves no product to run at a
+    reduced (bf16 / TF32) matmul precision.
     """
-    return jnp.matmul(a, b, precision="highest")
+    a = jnp.asarray(a)
+    b = jnp.asarray(b)
+    p = a * b
+    out = p[..., 0]
+    for k in range(1, p.shape[-1]):
+        out = out + p[..., k]
+    return out
+
+
+def matmul(a, b):
+    """Row-vector product ``a @ b``: ``a`` (..., K) times ``b`` (..., K, M),
+    leading dims broadcast (so a (N, K) @ (K, M) matrix product, or one
+    weight vector per pixel times one matrix per pixel). Summed in index
+    order with elementwise ops, for the reason given in :func:`dot`."""
+    a = jnp.asarray(a)
+    b = jnp.asarray(b)
+    out = a[..., 0, None] * b[..., 0, :]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., k, None] * b[..., k, :]
+    return out
 
 
 def normalize(a, axis=-1, order=2):
@@ -68,7 +92,11 @@ def normalize(a, axis=-1, order=2):
     Zero-norm rows are passed through unchanged (norm treated as 1).
     """
     a = jnp.asarray(a)
-    l2 = jnp.atleast_1d(jnp.linalg.norm(a, order, axis))
+    if order == 2:
+        moved = jnp.moveaxis(a, axis, -1)
+        l2 = jnp.atleast_1d(jnp.sqrt(dot(moved, moved)))
+    else:
+        l2 = jnp.atleast_1d(jnp.linalg.norm(a, order, axis))
     l2 = jnp.where(l2 == 0, 1, l2)
     return a / jnp.expand_dims(l2, axis)
 
@@ -91,11 +119,11 @@ def barycentric(a, b, c, p):
     v0 = b - a
     v1 = c - a
     v2 = p - a
-    d00 = v0 @ v0
-    d01 = v0 @ v1
-    d11 = v1 @ v1
-    d20 = v2 @ v0
-    d21 = v2 @ v1
+    d00 = dot(v0, v0)
+    d01 = dot(v0, v1)
+    d11 = dot(v1, v1)
+    d20 = dot(v2, v0)
+    d21 = dot(v2, v1)
     denom = d00 * d11 - d01 * d01
     inv_denom = 1.0 / denom
     v = (d11 * d20 - d01 * d21) * inv_denom
@@ -299,7 +327,7 @@ def FPSViewRH(eye, pitch, yaw):
     yaxis = jnp.stack([sy * sp, cp, cy * sp])
     zaxis = jnp.stack([sy * cp, -sp, cp * cy])
     rot = jnp.stack([xaxis, yaxis, zaxis], axis=1)          # rows: x/y/z of axes
-    bottom = jnp.stack([-(xaxis @ eye), -(yaxis @ eye), -(zaxis @ eye)])
+    bottom = jnp.stack([-dot(xaxis, eye), -dot(yaxis, eye), -dot(zaxis, eye)])
     m = jnp.eye(4, dtype=_flt()).at[:3, :3].set(rot)
     return m.at[3, :3].set(bottom)
 
@@ -333,7 +361,7 @@ def opengl_orthographicLH(fov, aspect_ratio, z_near, z_far):
     z_near = jnp.asarray(z_near, _flt())
     z_far = jnp.asarray(z_far, _flt())
     half_fov_rad = jnp.radians(jnp.asarray(fov, _flt()) / 2.0)
-    half_height = jnp.tan(half_fov_rad) * z_near
+    half_height = _tan(half_fov_rad) * z_near
     half_width = half_height * aspect_ratio
     zero = jnp.zeros((), _flt())
     one = jnp.ones((), _flt())
@@ -345,8 +373,40 @@ def opengl_orthographicLH(fov, aspect_ratio, z_near, z_far):
     ])
 
 
+#: Taylor-series factors: sin x = x(1 - x²/(2·3)(1 - x²/(4·5)(1 - ...))),
+#: cos x = 1 - x²/(1·2)(1 - x²/(3·4)(1 - ...)). Truncation error on
+#: |x| <= pi/2 is below 1e-11, far under f32 rounding.
+_SIN_STEPS = tuple(1.0 / ((2 * k) * (2 * k + 1)) for k in range(1, 8))
+_COS_STEPS = tuple(1.0 / ((2 * k - 1) * (2 * k)) for k in range(1, 9))
+
+
+def _series(x2, steps):
+    acc = jnp.ones_like(x2)
+    for c in reversed(steps):
+        acc = 1.0 - (x2 * c) * acc
+    return acc
+
+
+def _tan(x):
+    """tan of the half field-of-view angle of the projections.
+
+    An f32 ``jnp.tan`` is a library routine whose last-bit rounding differs
+    between XLA's CPU and GPU backends, and every projected coordinate
+    inherits it. sin / cos from the series above use only multiplies and
+    adds, so their quotient rounds the same on every device; it is within a
+    few ulp of the true value for |x| <= pi/2. Under x64 (the host overlay
+    path, which must match the reference's numpy f64 bit for bit) this is
+    ``jnp.tan``.
+    """
+    x = jnp.asarray(x, _flt())
+    if x.dtype != jnp.float32:
+        return jnp.tan(x)
+    x2 = x * x
+    return x * _series(x2, _SIN_STEPS) / _series(x2, _COS_STEPS)
+
+
 def _perspective(fovy, aspect, m22, m32, m23):
-    f = 1.0 / jnp.tan(jnp.radians(jnp.asarray(fovy, _flt())) / 2.0)
+    f = 1.0 / _tan(jnp.radians(jnp.asarray(fovy, _flt())) / 2.0)
     zero = jnp.zeros((), _flt())
     return jnp.stack([
         jnp.stack([f / aspect, zero, zero, zero]),

@@ -66,11 +66,10 @@ def gather_faces(vert_arrays, face_vid, height, width, backface_culling):
     degenerate screen triangles and empty clamped bounding boxes; plus
     world (F, 3, 3) when vert_arrays carries per-vertex world positions.
 
-    All per-vertex channels ride ONE packed (V, 10|13) gather: XLA emits a
-    separate ~13 ms/M-index gather pass per array (measured: 4 separate
-    gathers = ~7 ms/frame at a 100k-face scene), while one multi-column
-    gather amortizes the index walk across every channel. Values are
-    bit-identical — only the storage layout changes.
+    All per-vertex channels ride ONE packed (V, 10|13) gather instead of a
+    separate gather pass per array: one multi-column gather amortizes the
+    index walk across every channel. Values are bit-identical — only the
+    storage layout changes.
     """
     world_v = vert_arrays.get("world")
     parts = [vert_arrays["screen"], vert_arrays["clip"],
@@ -106,9 +105,9 @@ def gather_faces(vert_arrays, face_vid, height, width, backface_culling):
     # v = av*x + bv*y + cv, w likewise, u = 1 - v - w, z = az*x + bz*y + cz.
     # Algebraically identical to the two-dot-product form
     # (transformation.py:25-33) but one fused setup per FACE instead of per
-    # pixel — every rasterizer (ops/raster_xla.py, the Pallas kernels, and
-    # shading.pixel_barycentric) evaluates these coefficients with the same
-    # expression, so the backends stay bit-identical to each other. Absolute
+    # pixel — the rasterizer (ops/raster_xla.py) and
+    # shading.pixel_barycentric evaluate these coefficients with the same
+    # expression, so coverage and shading agree bit for bit. Absolute
     # f32 error of the global-coordinate evaluation is ~|coef|*2^-14 px
     # (coords <= 4k), orders below the half-pixel coverage granularity.
     ax, ay = sx[:, 0], sy[:, 0]

@@ -3,8 +3,10 @@
 The scaling axes of a rasterizer are pixels and primitives (SURVEY.md §5.7-5.8):
 the frame shards row-wise over a ``rows`` mesh axis (embarrassingly parallel),
 and the face batch shards over a ``tris`` axis whose partial z/id/stencil
-buffers merge with XLA collectives over ICI (pmin / pmax / psum — depth and
-signed stencil counts are associative reductions).
+buffers merge with XLA collectives (pmin / pmax / psum — depth and signed
+stencil counts are associative reductions). The mesh follows the algorithm
+alone: the devices of one host reach each other all to all (NVLink), so
+which device sits on which axis does not matter.
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 
 Each device rasterizes a contiguous block of frame rows (the ``rows`` axis)
 for its shard of the face batch (the ``tris`` axis); partial buffers merge
-with XLA collectives over ICI inside the compiled program (ops/pipeline.py
+with XLA collectives inside the compiled program (ops/pipeline.py
 ``render_core``):
 
 - z-buffer: ``pmin`` over ``tris`` (depth resolve is an associative min),
@@ -43,14 +43,7 @@ __all__ = ["render_frame_sharded", "pad_models_for_tris", "dyn_partition_specs"]
 #: Per-model packet keys sharded along the face axis.
 _FACE_KEYS = ("vid", "pad_valid", "uv", "kd", "ks", "ns", "pm", "pr", "ka",
               "kd_slot", "ks_slot", "norm_slot", "kd_shape", "ks_shape",
-              "norm_shape", "norm_tangent", "vn",
-              # windowed-sampler metadata (per face; the content table
-              # "windows" replicates across shards — each shard samples its
-              # own faces from the full texture grid)
-              "win_wbase", "win_nwr", "win_nwc", "win_rbase", "win_cbase",
-              "win_kmask", "win_thw", "win_ngrid",
-              "win2_wbase", "win2_nwr", "win2_nwc", "win2_rbase",
-              "win2_cbase", "win2_kmask", "win2_thw", "win2_ngrid")
+              "norm_shape", "norm_tangent", "vn")
 #: Incidence arrays sharded along the (3 * faces) axis.
 _INC_KEYS = ("inc_edge", "inc_dir", "inc_valid")
 
@@ -95,33 +88,30 @@ def dyn_partition_specs(dyn, n_tris: int):
 
 def render_frame_sharded(cfg: SceneConfig, dyn, mesh):
     """Render one frame across the mesh. Returns (frame_u8, zbuf, tid, stencil)
-    as global row-sharded arrays."""
+    as global row-sharded arrays. The program compiles once per (cfg, mesh)."""
+    height = cfg.resolution[0]
     n_rows = mesh.shape[ROWS_AXIS]
-    n_tris = mesh.shape.get(TRIS_AXIS, 1)
-    height, width = cfg.resolution
     if height % n_rows:
         raise ValueError(f"height {height} not divisible by rows={n_rows}")
-    local_h = height // n_rows
+    return _render_sharded(cfg, dyn, mesh)
+
+
+@partial(jax.jit, static_argnames=("cfg", "mesh"))
+def _render_sharded(cfg: SceneConfig, dyn, mesh):
+    n_tris = mesh.shape.get(TRIS_AXIS, 1)
+    local_h = cfg.resolution[0] // mesh.shape[ROWS_AXIS]
+    axis_tris = TRIS_AXIS if n_tris > 1 else None
 
     dyn = pad_models_for_tris(dyn, n_tris, cfg.chunk)
     in_specs = (dyn_partition_specs(dyn, n_tris),)
     out_specs = (P(ROWS_AXIS), P(ROWS_AXIS), P(ROWS_AXIS), P(ROWS_AXIS))
 
-    axis_tris = TRIS_AXIS if n_tris > 1 else None
-
     def local_render(d):
         row0 = jax.lax.axis_index(ROWS_AXIS) * local_h
-        frame, zbuf, tid, stencil = render_core(
-            cfg, d, local_height=local_h, row0=row0, axis_rows=ROWS_AXIS,
-            axis_tris=axis_tris)
-        return frame, zbuf, tid, stencil
+        return render_core(cfg, d, local_height=local_h, row0=row0,
+                           axis_tris=axis_tris)
 
-    fn = shard_map(local_render, mesh, in_specs, out_specs)
-
-    @partial(jax.jit, static_argnames=())
-    def run(d):
-        frame, zbuf, tid, stencil = fn(d)
-        out = (jnp.clip(frame[::-1] ** 0.8, 0.0, 1.0) * 255).astype(jnp.uint8)
-        return out, zbuf, tid, stencil
-
-    return run(dyn)
+    frame, zbuf, tid, stencil = shard_map(local_render, mesh, in_specs,
+                                          out_specs)(dyn)
+    out = (jnp.clip(frame[::-1] ** 0.8, 0.0, 1.0) * 255).astype(jnp.uint8)
+    return out, zbuf, tid, stencil

@@ -1,10 +1,10 @@
 """Minimal OBJ/MTL writer.
 
 Emits standard ``v/vt/vn`` + ``f a/b/c`` polygons loadable by BOTH this
-framework's loader (models/model.py) and the reference's
-(/root/reference/obj/core.py Model.load_model) — used by the
-heterogeneous-scene golden (10 distinct textured models written to a temp
-dir and rendered by both sides) and available as a small export utility.
+framework's loader (models/model.py) and the reference's (core.py
+Model.load_model) — used by the heterogeneous-scene golden (10 distinct
+textured models written to a temp dir and rendered by both sides), the
+native-loader tests, and available as a small export utility.
 
 Quad faces are emitted as quads on purpose: loaders fan-triangulate
 (core.py polygon fan), so round-tripping them exercises that path.
